@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tinynerf_tpu.core import (
+from tinynerf.core import (
     ContractionAABB,
     ContractionMip360,
     NerfRenderer,
@@ -15,8 +15,8 @@ from tinynerf_tpu.core import (
     RayMarcherAABB,
     RayMarcherUnbounded,
 )
-from tinynerf_tpu.models import make_model
-from tinynerf_tpu.ops import bilinear_lookup, trilinear_lookup
+from tinynerf.models import make_model
+from tinynerf.ops import bilinear_lookup, trilinear_lookup
 
 KEY = jax.random.PRNGKey(0)
 AABB = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))

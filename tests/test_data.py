@@ -4,7 +4,7 @@ tests/test_data.py checks counts/dtypes/[0,1] range on its fixture)."""
 import jax
 import numpy as np
 
-from tinynerf_tpu.data import (
+from tinynerf.data import (
     Intrinsics,
     NerfData,
     PoseSet,

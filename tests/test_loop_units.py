@@ -2,8 +2,8 @@
 
 from pathlib import Path
 
-from tinynerf_tpu.train import TrainConfig
-from tinynerf_tpu.train.loop import BucketEstimator, lr_schedule, pick_bucket
+from tinynerf.train import TrainConfig
+from tinynerf.train.loop import BucketEstimator, lr_schedule, pick_bucket
 
 
 def cfg(**kw):
@@ -101,7 +101,7 @@ def test_split_table_lr():
     import jax.numpy as jnp
     import numpy as np
 
-    from tinynerf_tpu.train.loop import make_optimizer
+    from tinynerf.train.loop import make_optimizer
 
     c = cfg(lr_init=1e-3, lr_tables=1e-2, weight_decay=0.0)
     opt = make_optimizer(c)
@@ -126,7 +126,7 @@ def test_decay_tables_switch():
     import jax.numpy as jnp
     import numpy as np
 
-    from tinynerf_tpu.train.loop import make_optimizer
+    from tinynerf.train.loop import make_optimizer
 
     params = {"field": {"planes": [[jnp.full((4, 4, 2), 2.0)]]},
               "rgb": {"mlp": [(jnp.full((3, 3), 2.0), jnp.zeros(3))]}}
@@ -153,7 +153,7 @@ def test_fused_adam_matches_optax_chain():
     import optax
     from functools import partial
 
-    from tinynerf_tpu.train.loop import (
+    from tinynerf.train.loop import (
         _decay_mask,
         lr_schedule,
         make_optimizer,
@@ -162,7 +162,7 @@ def test_fused_adam_matches_optax_chain():
     c = cfg(method="cobafa", lr_init=1e-3, lr_tables=1e-2, weight_decay=1e-5)
     # reference chain, built exactly as rounds 1-4 did
     schedule = lr_schedule(c)
-    from tinynerf_tpu.models.registry import make_model
+    from tinynerf.models.registry import make_model
 
     field, _, _ = make_model(c.method)
     mask_fn = partial(
@@ -209,7 +209,7 @@ def test_fused_adam_matches_optax_chain():
 
 
 def test_method_aware_lr_defaults():
-    """Per-method lr defaults (BASELINE.md sweeps): K-Planes keeps the
+    """Per-method lr defaults (spheres-scene sweeps): K-Planes keeps the
     reference's 1e-2; vanilla/cobafa use the swept optima."""
     assert cfg(method="kplanes").effective_lr == 1e-2
     assert cfg(method="vanilla").effective_lr == 1e-3
@@ -218,7 +218,7 @@ def test_method_aware_lr_defaults():
 
 
 def test_march_policy_demand_threshold():
-    from tinynerf_tpu.train.loop import MarchPolicy
+    from tinynerf.train.loop import MarchPolicy
 
     p = MarchPolicy(supported=True, mode="auto", skip_steps=64)
     assert p.pick(10.0) == "skip"       # ample budget
@@ -232,7 +232,7 @@ def test_march_policy_transient_fallback_recovers():
     """A budget-exhaustion trip falls back to dense ONLY until the next
     occupancy update — a transient demand spike must not forfeit the skip
     marcher for the rest of the run (the round-2 one-way latch)."""
-    from tinynerf_tpu.train.loop import MarchPolicy
+    from tinynerf.train.loop import MarchPolicy
 
     p = MarchPolicy(supported=True, mode="auto", skip_steps=64)
     assert p.pick(5.0) == "skip"
@@ -255,8 +255,8 @@ def test_decay_mask_derived_from_field_declarations():
     import jax.numpy as jnp
     import pytest
 
-    from tinynerf_tpu.models import make_model
-    from tinynerf_tpu.train.loop import _decay_mask
+    from tinynerf.models import make_model
+    from tinynerf.train.loop import _decay_mask
 
     for method, table_key in (("kplanes", "planes"), ("cobafa", "basis")):
         # smallest valid scale: the mask derivation only reads pytree keys,
@@ -283,8 +283,8 @@ def test_decay_mask_derived_from_field_declarations():
 
 
 def test_pick_bucket_max_bucket_cap():
-    # the sparse-view overfit knob clamps the ladder (BASELINE.md round-3
-    # correction: an uncapped converged ladder = 24x effective batch on a
+    # the sparse-view overfit knob clamps the ladder (an uncapped converged
+    # ladder = 24x effective batch on a
     # 12-view scene); None leaves it unlimited
     assert pick_bucket(cfg(max_bucket=4), avg_samples_per_ray=25.0) == 4
     assert pick_bucket(cfg(max_bucket=None), avg_samples_per_ray=25.0) == 16

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tinynerf_tpu.models import (
+from tinynerf.models import (
     ColorDecoder,
     CobafaFeatureField,
     KPlanesExplicitColorDecoder,
@@ -18,7 +18,7 @@ from tinynerf_tpu.models import (
     posenc_dim,
     positional_encoding,
 )
-from tinynerf_tpu.ops import sawtooth, truncated_exp
+from tinynerf.ops import sawtooth, truncated_exp
 
 KEY = jax.random.PRNGKey(0)
 X = jax.random.uniform(jax.random.PRNGKey(1), (100, 3), minval=-1.0, maxval=1.0)
@@ -134,8 +134,8 @@ def test_color_decoders_per_ray_matches_apply():
     """apply_per_ray (forward-only serving variant: per-RAY direction branch
     + f32 row gather) must reproduce apply() on the equivalent gathered-dirs
     input, for both decoder families and both compute dtypes."""
-    from tinynerf_tpu.models.kplanes import KPlanesExplicitColorDecoder
-    from tinynerf_tpu.models.vanilla import ColorDecoder
+    from tinynerf.models.kplanes import KPlanesExplicitColorDecoder
+    from tinynerf.models.vanilla import ColorDecoder
 
     n_rays, cap, fdim = 13, 97, 8
     key = jax.random.PRNGKey(0)

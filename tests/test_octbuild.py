@@ -1,56 +1,53 @@
-"""Pallas oct/quad cell-pack builders vs the jnp semantic reference.
+"""Cell-pack (oct/quad) table builds vs the jnp semantic reference.
 
-The kernel pattern contract (CLAUDE.md): every hot op ships a jnp reference
-implementation and numeric tests against it.  On CPU the Pallas kernels run
-in interpret mode; on TPU the same tests compare compiled kernels.
+Every build formulation in ops/interp.py (`_OCT_BUILD_MODE` /
+`_QUAD_BUILD_MODE`) must be bit-identical to `build_oct_ref` /
+`build_quad_ref`, including the dtype cast.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tinynerf_tpu.ops.interp import _build_oct, _build_quad
-from tinynerf_tpu.ops.octbuild import (
-    build_oct_pallas,
-    build_oct_ref,
-    build_quad_pallas,
-    build_quad_ref,
-)
-
-INTERPRET = jax.default_backend() != "tpu"
+from tinynerf.ops import interp
+from tinynerf.ops.interp import _build_oct, _build_quad, build_oct_ref, build_quad_ref
 
 
+@pytest.mark.parametrize("mode", ["stack", "pad"])
 @pytest.mark.parametrize(
     "shape", [(5, 6, 7, 3), (9, 9, 9, 4), (9, 17, 9, 4), (6, 6, 6, 8)]
 )
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_oct_pallas_matches_ref(shape, dtype):
+def test_oct_build_matches_ref(monkeypatch, mode, shape, dtype):
+    monkeypatch.setattr(interp, "_OCT_BUILD_MODE", mode)
     rng = np.random.default_rng(0)
     t = jnp.asarray(rng.normal(size=shape).astype(np.float32))
     ref = build_oct_ref(t, dtype)
-    got = build_oct_pallas(t, dtype, interpret=INTERPRET)
+    got = _build_oct(t, dtype)
     assert got.dtype == ref.dtype
     np.testing.assert_array_equal(
         np.asarray(ref, np.float32), np.asarray(got, np.float32)
     )
 
 
+@pytest.mark.parametrize("mode", ["stack", "pad"])
 @pytest.mark.parametrize("shape", [(5, 7, 2), (9, 6, 8), (17, 17, 6)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_quad_pallas_matches_ref(shape, dtype):
+def test_quad_build_matches_ref(monkeypatch, mode, shape, dtype):
+    monkeypatch.setattr(interp, "_QUAD_BUILD_MODE", mode)
     rng = np.random.default_rng(1)
     t = jnp.asarray(rng.normal(size=shape).astype(np.float32))
     ref = build_quad_ref(t, dtype)
-    got = build_quad_pallas(t, dtype, interpret=INTERPRET)
+    got = _build_quad(t, dtype)
+    assert got.dtype == ref.dtype
     np.testing.assert_array_equal(
         np.asarray(ref, np.float32), np.asarray(got, np.float32)
     )
 
 
 def test_refs_match_shipping_interleave_formulation():
-    """The *_ref stack formulation equals interp.py's interior-pad build
-    (which remains the CPU path) — corner order and values bit-identical."""
+    """The *_ref stack formulation equals the default builds — corner order
+    and values bit-identical."""
     rng = np.random.default_rng(2)
     t3 = jnp.asarray(rng.normal(size=(6, 7, 8, 3)).astype(np.float32))
     np.testing.assert_array_equal(
@@ -62,14 +59,3 @@ def test_refs_match_shipping_interleave_formulation():
         np.asarray(_build_quad(t2, jnp.float32)),
         np.asarray(build_quad_ref(t2, jnp.float32)),
     )
-
-
-def test_oct_chunk_sizes_agree():
-    """y-chunking is an implementation detail: all chunk sizes give the
-    same table (exercises the clamped overlap row on partial chunks)."""
-    rng = np.random.default_rng(3)
-    t = jnp.asarray(rng.normal(size=(7, 12, 9, 2)).astype(np.float32))
-    ref = build_oct_ref(t, jnp.float32)
-    for chunk in (1, 3, 8, 64):
-        got = build_oct_pallas(t, jnp.float32, interpret=INTERPRET, chunk=chunk)
-        np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tinynerf_tpu.core import (
+from tinynerf.core import (
     ContractionAABB,
     NerfRenderer,
     OccupancyGrid,
     RayMarcherAABB,
 )
-from tinynerf_tpu.models import make_model
-from tinynerf_tpu.parallel import make_mesh
-from tinynerf_tpu.train.loop import make_occupancy_update, make_render_chunk
+from tinynerf.models import make_model
+from tinynerf.parallel import make_mesh
+from tinynerf.train.loop import make_occupancy_update, make_render_chunk
 
 AABB = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
 KEY = jax.random.PRNGKey(0)

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tinynerf_tpu.core import (
+from tinynerf.core import (
     ContractionAABB,
     NerfRenderer,
     OccupancyGrid,
     RayMarcherAABB,
 )
-from tinynerf_tpu.core.skipmarch import make_skip_grid, skip_march
-from tinynerf_tpu.models import ColorDecoder, KPlanesFeatureField, OpacityDecoder
+from tinynerf.core.skipmarch import make_skip_grid, skip_march
+from tinynerf.models import ColorDecoder, KPlanesFeatureField, OpacityDecoder
 
 AABB = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
 
@@ -159,9 +159,9 @@ def test_train_step_skip_march_mode():
     loss as the dense step on the identical deterministic batch."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from tinynerf_tpu.parallel import make_mesh
-    from tinynerf_tpu.train import TrainConfig, build_renderer, make_optimizer
-    from tinynerf_tpu.train.loop import make_train_step
+    from tinynerf.parallel import make_mesh
+    from tinynerf.train import TrainConfig, build_renderer, make_optimizer
+    from tinynerf.train.loop import make_train_step
 
     cfg = TrainConfig(
         method="kplanes", scene_type="aabb", batch_size=64, n_samples=16,
@@ -214,7 +214,7 @@ def test_train_step_skip_march_mode():
 # ------------------------------------------------------- unbounded marching
 
 def make_unbounded_renderer(res=16, n_samples=64, skip_steps=None):
-    from tinynerf_tpu.core import ContractionMip360, RayMarcherUnbounded
+    from tinynerf.core import ContractionMip360, RayMarcherUnbounded
 
     marcher = RayMarcherUnbounded(n_samples=n_samples, near=0.1, far=1e5,
                                   uniform_range=2.0)
@@ -232,7 +232,7 @@ def make_unbounded_renderer(res=16, n_samples=64, skip_steps=None):
 
 
 def test_skip_grid_iso_conservative():
-    from tinynerf_tpu.core.skipmarch import make_skip_grid_iso
+    from tinynerf.core.skipmarch import make_skip_grid_iso
 
     res = 12
     occ_b = (jax.random.uniform(jax.random.PRNGKey(5), (res, res, res)) < 0.08)

@@ -1,210 +1,106 @@
-"""Sorted-window table-gradient kernel (ops/table_grad.py): numeric equality
-with the jnp scatter-add reference, and end-to-end gradient equality of the
-multiscale lookup under bwd_impl="sorted" vs "scatter"."""
+"""Table-gradient backward of the cell-packed lookups (ops/interp.py): the
+custom VJPs' scatter-add backward against plain autodiff through the f32
+corner-gather lookups, and the fused multiscale/multi-projection forms
+against their per-scale equivalents."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tinynerf_tpu.ops.interp import bilinear_lookup_multiscale
-from tinynerf_tpu.ops.table_grad import (
-    sort_by_window,
-    table_grad_sorted,
-    windowed_accumulate_ref,
+from tinynerf.ops.interp import (
+    bilinear_lookup,
+    bilinear_lookup_multiscale,
+    multiscale_lookup_multiproj,
+    trilinear_lookup,
+    trilinear_lookup_oct,
 )
 
 
-def _random_case(seed, p=2, n=1500, f=8, n_cells=600):
+def _tables(seed, f, resolutions=(9, 17, 33)):
+    key = jax.random.PRNGKey(seed)
+    return tuple(
+        jax.random.normal(jax.random.fold_in(key, i), (r, r, f))
+        for i, r in enumerate(resolutions)
+    )
+
+
+@pytest.mark.parametrize(
+    "seed,f,n", [(1, 4, 400), (2, 8, 256), (3, 8, 1500), (4, 2, 700)]
+)
+@pytest.mark.parametrize("fwd_impl", ["perscale", "fusedfine"])
+def test_multiscale_grads_match_autodiff(seed, f, n, fwd_impl):
+    """d/dtables of the fused multiscale lookup (one wide scatter into the
+    upsampled fine table, pulled back per scale) equals plain autodiff of
+    the per-scale f32 bilinear lookups."""
+    tables = _tables(seed, f)
+    coords = jax.random.uniform(
+        jax.random.PRNGKey(10 + seed), (n, 2), minval=-1, maxval=1
+    )
+    cot = jax.random.normal(jax.random.PRNGKey(20 + seed), (n, 3 * f))
+
+    def fused(ts):
+        out = bilinear_lookup_multiscale(ts, coords, jnp.float32, fwd_impl)
+        return jnp.sum(out * cot)
+
+    def plain(ts):
+        out = jnp.concatenate([bilinear_lookup(t, coords) for t in ts], axis=-1)
+        return jnp.sum(out * cot)
+
+    for a, b in zip(jax.grad(fused)(tables), jax.grad(plain)(tables)):
+        scale = float(jnp.abs(b).max()) + 1e-9
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), atol=1e-5 * scale
+        )
+
+
+@pytest.mark.parametrize("seed,shape", [(5, (9, 9, 9, 4)), (6, (5, 7, 6, 8))])
+def test_oct_lookup_grads_match_autodiff(seed, shape):
+    """3-D cell-packed (8-corner) scatter backward vs autodiff."""
     rng = np.random.default_rng(seed)
-    g = rng.normal(size=(p, n, f)).astype(np.float32)
-    w4 = rng.uniform(size=(p, n, 4)).astype(np.float32)
-    cell = rng.integers(0, n_cells, size=(p, n), dtype=np.int32)
-    return jnp.asarray(g), jnp.asarray(w4), jnp.asarray(cell), n_cells
+    table = jnp.asarray(rng.normal(size=shape).astype(np.float32))
+    coords = jnp.asarray(rng.uniform(-1, 1, (900, 3)).astype(np.float32))
+    cot = jnp.asarray(rng.normal(size=(900, shape[-1])).astype(np.float32))
+    g_oct = jax.grad(
+        lambda t: jnp.sum(trilinear_lookup_oct(t, coords, jnp.float32) * cot)
+    )(table)
+    g_ref = jax.grad(lambda t: jnp.sum(trilinear_lookup(t, coords) * cot))(table)
+    np.testing.assert_allclose(np.asarray(g_oct), np.asarray(g_ref), atol=1e-4)
 
 
-def _scatter_ref_nc(g, w, cell, n_cells):
-    nc = w.shape[-1]
-    out = []
-    for pi in range(g.shape[0]):
-        contrib = jnp.concatenate(
-            [w[pi, :, k : k + 1] * g[pi] for k in range(nc)], axis=1
-        )
-        out.append(
-            jnp.zeros((n_cells, nc * g.shape[-1]), jnp.float32)
-            .at[cell[pi]]
-            .add(contrib)
-        )
-    return jnp.stack(out)
+def test_multiscale_grads_single_hot_cell():
+    """Every sample in one cell: the scatter accumulates all rows into one
+    table row without loss."""
+    tables = _tables(7, 4)
+    coords = jnp.full((700, 2), 0.123, jnp.float32)
+    cot = jax.random.normal(jax.random.PRNGKey(8), (700, 12))
 
+    def fused(ts):
+        return jnp.sum(bilinear_lookup_multiscale(ts, coords, jnp.float32) * cot)
 
-def _scatter_ref(g, w4, cell, n_cells):
-    p, n, f = g.shape
-    out = []
-    for pi in range(p):
-        contrib = jnp.concatenate(
-            [w4[pi, :, k : k + 1] * g[pi] for k in range(4)], axis=1
-        )
-        out.append(
-            jnp.zeros((n_cells, 4 * f), jnp.float32).at[cell[pi]].add(contrib)
-        )
-    return jnp.stack(out)
+    def plain(ts):
+        out = jnp.concatenate([bilinear_lookup(t, coords) for t in ts], axis=-1)
+        return jnp.sum(out * cot)
 
-
-def test_sort_by_window_offsets():
-    _, _, cell, n_cells = _random_case(0)
-    w = 128
-    n_cells_pad = -(-n_cells // w) * w
-    perm, offsets = sort_by_window(cell, n_cells_pad, w)
-    perm, offsets = np.asarray(perm), np.asarray(offsets)
-    for pi in range(cell.shape[0]):
-        c = np.asarray(cell[pi])
-        assert sorted(perm[pi].tolist()) == list(range(cell.shape[1]))
-        buckets = c[perm[pi]] // w
-        assert (np.diff(buckets) >= 0).all()
-        for wi in range(n_cells_pad // w):
-            lo, hi = offsets[pi, wi], offsets[pi, wi + 1]
-            assert (buckets[lo:hi] == wi).all()
-        assert offsets[pi, -1] == cell.shape[1]
-
-
-@pytest.mark.parametrize("seed,w_window", [(1, 128), (2, 256), (3, 256)])
-def test_table_grad_sorted_matches_scatter(seed, w_window):
-    """The full pipeline matches the f32 scatter to the (hi, lo) bf16-pair
-    accumulation error (~2^-16 relative)."""
-    g, w4, cell, n_cells = _random_case(seed)
-    out = table_grad_sorted(g, w4, cell, n_cells, w_window=w_window)
-    ref = _scatter_ref(g, w4, cell, n_cells)
-    scale = float(jnp.abs(ref).max())
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), atol=3e-5 * scale
-    )
-
-
-def test_table_grad_sorted_eight_corners():
-    """3-D (oct) corner count: nc=8 rows, the cobafa layout."""
-    rng = np.random.default_rng(7)
-    p, n, f, n_cells = 1, 900, 4, 300
-    g = jnp.asarray(rng.normal(size=(p, n, f)).astype(np.float32))
-    w8 = jnp.asarray(rng.uniform(size=(p, n, 8)).astype(np.float32))
-    cell = jnp.asarray(rng.integers(0, n_cells, size=(p, n), dtype=np.int32))
-    out = table_grad_sorted(g, w8, cell, n_cells, w_window=64)
-    ref = _scatter_ref_nc(g, w8, cell, n_cells)
-    scale = float(jnp.abs(ref).max())
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=3e-5 * scale)
-
-
-@pytest.mark.parametrize("seed,w_window", [(1, 128), (2, 256)])
-def test_table_grad_sorted_bf16_payload(seed, w_window):
-    """The bf16 payload quantizes ONLY the cotangent g (~2^-8 relative);
-    weights ride as an exact (hi, lo) pair and the cell as the exact
-    within-window offset — so the result matches the f32 scatter to g's
-    quantization error, not worse."""
-    g, w4, cell, n_cells = _random_case(seed)
-    out = table_grad_sorted(
-        g, w4, cell, n_cells, w_window=w_window, payload_dtype=jnp.bfloat16
-    )
-    ref = _scatter_ref(g, w4, cell, n_cells)
-    scale = float(jnp.abs(ref).max())
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), atol=6e-3 * scale
-    )
-    # and it is exactly the scatter of bf16-quantized g (weights exact)
-    ref_q = _scatter_ref(g.astype(jnp.bfloat16).astype(jnp.float32), w4, cell, n_cells)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref_q), atol=3e-5 * scale
-    )
-
-
-def test_multiscale_lookup_sorted_bf16_grads_close():
-    """End to end: bwd_impl='sorted_bf16' grads match the scatter backward
-    to the g-quantization error class."""
-    key = jax.random.PRNGKey(4)
-    tables = tuple(
-        jax.random.normal(jax.random.fold_in(key, i), (r, r, 4))
-        for i, r in enumerate((9, 17, 33))
-    )
-    coords = jax.random.uniform(jax.random.PRNGKey(9), (400, 2), minval=-1, maxval=1)
-    cot = jax.random.normal(jax.random.PRNGKey(5), (400, 12))
-
-    def run(impl):
-        def f(ts):
-            out = bilinear_lookup_multiscale(ts, coords, jnp.float32, impl)
-            return jnp.sum(out * cot)
-
-        return jax.grad(f)(tables)
-
-    g_scatter = run("scatter")
-    g_bf16 = run("sorted_bf16")
-    for a, b in zip(g_scatter, g_bf16):
-        scale = float(jnp.abs(a).max()) + 1e-9
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), atol=8e-3 * scale
-        )
-
-
-def test_windowed_accumulate_empty_and_skewed_windows():
-    """Windows with zero samples and one window holding everything."""
-    p, n, f = 1, 700, 4
-    n_cells, w = 256, 64
-    rng = np.random.default_rng(4)
-    g = jnp.asarray(rng.normal(size=(p, n, f)).astype(np.float32))
-    w4 = jnp.asarray(rng.uniform(size=(p, n, 4)).astype(np.float32))
-    cell = jnp.asarray(np.full((p, n), 130, np.int32))  # all in window 2
-    out = table_grad_sorted(g, w4, cell, n_cells, w_window=w)
-    ref = _scatter_ref(g, w4, cell, n_cells)
-    scale = float(jnp.abs(ref).max())
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=3e-5 * scale)
-
-
-def test_multiscale_lookup_sorted_grads_match_scatter():
-    """End to end: d/dtables of the fused multiscale lookup is the same under
-    the sorted-window backward and the XLA scatter backward."""
-    key = jax.random.PRNGKey(0)
-    tables = tuple(
-        jax.random.normal(jax.random.fold_in(key, i), (r, r, 4))
-        for i, r in enumerate((9, 17, 33))
-    )
-    coords = jax.random.uniform(jax.random.PRNGKey(9), (400, 2), minval=-1, maxval=1)
-    cot = jax.random.normal(jax.random.PRNGKey(5), (400, 12))
-
-    def run(impl):
-        def f(ts):
-            out = bilinear_lookup_multiscale(ts, coords, jnp.float32, impl)
-            return jnp.sum(out * cot)
-
-        return jax.grad(f)(tables)
-
-    g_scatter = run("scatter")
-    g_sorted = run("sorted")
-    for a, b in zip(g_scatter, g_sorted):
-        # only the (hi, lo) bf16-pair accumulation error differs (~2^-16)
-        scale = float(jnp.abs(a).max()) + 1e-9
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), atol=1e-4 * scale
-        )
+    for a, b in zip(jax.grad(fused)(tables), jax.grad(plain)(tables)):
+        scale = float(jnp.abs(b).max()) + 1e-9
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5 * scale)
 
 
 def test_multiscale_fusedfine_fwd_matches_perscale():
     """At f32 gather dtype the fused-fine forward must match the per-scale
     forward (exact-upsampling property); grads are identical by
     construction (shared backward)."""
-    key = jax.random.PRNGKey(1)
-    tables = tuple(
-        jax.random.normal(jax.random.fold_in(key, i), (r, r, 4))
-        for i, r in enumerate((9, 17, 33))
-    )
+    tables = _tables(1, 4)
     coords = jax.random.uniform(jax.random.PRNGKey(2), (300, 2), minval=-1, maxval=1)
-    a = bilinear_lookup_multiscale(tables, coords, jnp.float32, "scatter", "perscale")
-    b = bilinear_lookup_multiscale(tables, coords, jnp.float32, "scatter", "fusedfine")
+    a = bilinear_lookup_multiscale(tables, coords, jnp.float32, "perscale")
+    b = bilinear_lookup_multiscale(tables, coords, jnp.float32, "fusedfine")
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)
 
 
 def test_multiproj_matches_per_projection():
     """multiscale_lookup_multiproj values and table grads == three
     independent bilinear_lookup_multiscale calls."""
-    from tinynerf_tpu.ops.interp import multiscale_lookup_multiproj
-
     key = jax.random.PRNGKey(3)
     tables_by_proj = tuple(
         tuple(
@@ -225,14 +121,12 @@ def test_multiproj_matches_per_projection():
     )
 
     def f_multi(ts):
-        outs = multiscale_lookup_multiproj(
-            ts, coords_by_proj, jnp.float32, "sorted"
-        )
+        outs = multiscale_lookup_multiproj(ts, coords_by_proj, jnp.float32)
         return sum(jnp.sum(o * c) for o, c in zip(outs, cot))
 
     def f_single(ts):
         outs = [
-            bilinear_lookup_multiscale(t, c, jnp.float32, "scatter")
+            bilinear_lookup_multiscale(t, c, jnp.float32)
             for t, c in zip(ts, coords_by_proj)
         ]
         return sum(jnp.sum(o * c) for o, c in zip(outs, cot))
@@ -265,8 +159,8 @@ def test_multiproj_sharded_pullback_partials_sum_to_full():
     except ImportError:
         from jax.experimental.shard_map import shard_map
 
-    from tinynerf_tpu.ops.interp import multiscale_lookup_multiproj
-    from tinynerf_tpu.parallel import DATA_AXIS, make_mesh
+    from tinynerf.ops.interp import multiscale_lookup_multiproj
+    from tinynerf.parallel import DATA_AXIS, make_mesh
 
     if len(jax.devices()) < 8:
         import pytest
@@ -296,7 +190,7 @@ def test_multiproj_sharded_pullback_partials_sum_to_full():
 
     def loss(ts, coords, cs, shard_axis):
         outs = multiscale_lookup_multiproj(
-            ts, coords, jnp.float32, "scatter", "perscale", shard_axis
+            ts, coords, jnp.float32, "perscale", shard_axis
         )
         return sum(jnp.sum(o * c) for o, c in zip(outs, cs))
 

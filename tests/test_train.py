@@ -8,9 +8,9 @@ import jax
 import numpy as np
 import pytest
 
-from tinynerf_tpu.data import PoseSet, RayPool, parse_nerf_synthetic
-from tinynerf_tpu.parallel import make_mesh
-from tinynerf_tpu.train import (
+from tinynerf.data import PoseSet, RayPool, parse_nerf_synthetic
+from tinynerf.parallel import make_mesh
+from tinynerf.train import (
     TrainConfig,
     latest_checkpoint,
     load_checkpoint,
@@ -98,8 +98,8 @@ def test_sharded_matches_single_device_grads(pools, tmp_path):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from tinynerf_tpu.train import build_renderer, make_optimizer
-    from tinynerf_tpu.train.loop import make_train_step
+    from tinynerf.train import build_renderer, make_optimizer
+    from tinynerf.train.loop import make_train_step
 
     train_rays, _ = pools
     # f32 compute: bf16 matmul reductions split differently across mesh
@@ -160,10 +160,37 @@ def test_checkpoint_resume(pools, tmp_path):
     assert len(out["train_metrics"]) == 2  # steps 2..4
 
 
+@pytest.mark.parametrize("suffix", ["old", "v0"])
+def test_checkpoint_under_former_package_name_loads(tmp_path, monkeypatch, suffix):
+    """A checkpoint whose classes were pickled under the package's former
+    name (`tinynerf_<suffix>`) loads into the present package's classes."""
+    import sys
+    import types
+
+    from tinynerf.core.occupancy import OccupancyState
+    from tinynerf.train import save_checkpoint
+
+    former = f"tinynerf_{suffix}.core.occupancy"
+    parts = former.split(".")
+    for i in range(1, len(parts) + 1):
+        monkeypatch.setitem(sys.modules, ".".join(parts[:i]), types.ModuleType(".".join(parts[:i])))
+    monkeypatch.setattr(sys.modules[former], "OccupancyState", OccupancyState, raising=False)
+    monkeypatch.setattr(OccupancyState, "__module__", former)
+    occ = OccupancyState(np.ones((2, 2, 2), np.float32), np.float32(1.0))
+    path = save_checkpoint(tmp_path, 7, {"occ_state": occ})
+    monkeypatch.undo()
+    assert former.encode() in path.read_bytes()
+
+    step, state = load_checkpoint(path)
+    assert step == 7
+    assert type(state["occ_state"]) is OccupancyState
+    np.testing.assert_array_equal(state["occ_state"].grid, occ.grid)
+
+
 def test_render_only(pools, tmp_path):
     """render_only() renders the test split from the latest checkpoint and
     writes per-image metrics (the CLI --render_only surface)."""
-    from tinynerf_tpu.train.loop import render_only
+    from tinynerf.train.loop import render_only
 
     train_rays, test_set = pools
     mesh = make_mesh(jax.devices()[:1])
@@ -180,8 +207,8 @@ def test_infer_packed_matches_dense(pools, tmp_path):
     """The packed serving path (and its overflow fallback, and the
     skip-marched variant) must produce the same images as the dense
     reference eval — packed eval is an optimization, not an approximation."""
-    from tinynerf_tpu.train import build_renderer
-    from tinynerf_tpu.train.loop import (
+    from tinynerf.train import build_renderer
+    from tinynerf.train.loop import (
         infer,
         make_render_chunk,
         make_render_chunk_packed,

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tinynerf_tpu.ops import compute_weights, compute_weights_naive
+from tinynerf.ops import compute_weights, compute_weights_naive
 
 
 def loop_weights(sigmas, deltas, mask, threshold):

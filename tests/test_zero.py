@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tinynerf_tpu.models.kplanes import KPlanesFeatureField
-from tinynerf_tpu.parallel import make_mesh
-from tinynerf_tpu.parallel.zero import (
+from tinynerf.models.kplanes import KPlanesFeatureField
+from tinynerf.parallel import make_mesh
+from tinynerf.parallel.zero import (
     global_view,
     spec_tree,
     table_mask_tree,
@@ -101,10 +101,10 @@ def test_zero_checkpoint_resume_continues_identically(synthetic_scene, tmp_path)
     round-trip (train/checkpoint.py): 2 steps + save + load + 2 steps must
     reproduce 4 uninterrupted steps bit-for-bit on the same mesh — the
     contract behind TrainConfig.shard_tables' resume note."""
-    from tinynerf_tpu.data import RayPool, parse_nerf_synthetic
-    from tinynerf_tpu.train import TrainConfig, build_renderer, make_optimizer
-    from tinynerf_tpu.train.checkpoint import load_checkpoint, save_checkpoint
-    from tinynerf_tpu.train.loop import init_opt_state, make_train_step
+    from tinynerf.data import RayPool, parse_nerf_synthetic
+    from tinynerf.train import TrainConfig, build_renderer, make_optimizer
+    from tinynerf.train.checkpoint import load_checkpoint, save_checkpoint
+    from tinynerf.train.loop import init_opt_state, make_train_step
 
     train_rays = RayPool(parse_nerf_synthetic(synthetic_scene, "train"))
     cfg = TrainConfig(
@@ -165,9 +165,9 @@ def test_zero_step_matches_replicated(synthetic_scene, tmp_path):
     loss, grads, and updated params as the replicated 8-device step on the
     identical deterministic batch — the end-to-end guard on the
     scatter/shard/gather plumbing AND the partitioned regularizer."""
-    from tinynerf_tpu.data import RayPool, parse_nerf_synthetic
-    from tinynerf_tpu.train import TrainConfig, build_renderer, make_optimizer
-    from tinynerf_tpu.train.loop import init_opt_state, make_train_step
+    from tinynerf.data import RayPool, parse_nerf_synthetic
+    from tinynerf.train import TrainConfig, build_renderer, make_optimizer
+    from tinynerf.train.loop import init_opt_state, make_train_step
 
     train_rays = RayPool(parse_nerf_synthetic(synthetic_scene, "train"))
     cfg = TrainConfig(
@@ -188,7 +188,7 @@ def test_zero_step_matches_replicated(synthetic_scene, tmp_path):
     # shrink the field: the plumbing under test (flat views, psum_scatter,
     # partial TV, banded pullback) is size-agnostic, and the full 513^2
     # tables cost minutes of CPU-mesh compile per step variant
-    from tinynerf_tpu.models.vanilla import ColorDecoder, OpacityDecoder
+    from tinynerf.models.vanilla import ColorDecoder, OpacityDecoder
 
     small = KPlanesFeatureField(feature_dim_per_plane=8, resolutions=(9, 17, 33))
     renderer = dataclasses.replace(

@@ -28,8 +28,8 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from tinynerf_tpu.train import TrainConfig, build_renderer
-    from tinynerf_tpu.utils import make_shell_occupancy
+    from tinynerf.train import TrainConfig, build_renderer
+    from tinynerf.utils import make_shell_occupancy
 
     cfg = TrainConfig(method="kplanes", scene_type="aabb",
                       batch_size=2048, n_samples=400, occupancy_res=128)

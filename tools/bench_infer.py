@@ -24,12 +24,12 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tinynerf_tpu.train import TrainConfig, build_renderer
-    from tinynerf_tpu.train.loop import (
+    from tinynerf.train import TrainConfig, build_renderer
+    from tinynerf.train.loop import (
         make_render_chunk,
         make_render_chunk_packed,
     )
-    from tinynerf_tpu.utils import make_shell_occupancy
+    from tinynerf.utils import make_shell_occupancy
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--method", default="kplanes")

@@ -1,17 +1,15 @@
 #!/usr/bin/env python
 """Dissect the cobafa field FORWARD at the flagship budget.
 
-profile_step (round 5) measured field fwd at 207.6 ms against a ~70 ms
-floor-side estimate (7 oct builds ~31 + 7 row gathers ~34 + MLP + VPU).
-Candidate culprits, each isolated here:
+Candidate costs of the field forward beyond its builds and gathers, each
+isolated here:
 
-  (a) the round-4 gather-fold pathology (BASELINE.md: a fwd-only program
-      folds the oct build's final reshape into the consuming gather,
-      lowering it to a general gather ~3x slower) surviving the
-      `_TABLE_BARRIER` optimization_barrier;
+  (a) the gather-fold pathology (a fwd-only program may fold the oct
+      build's final reshape into the consuming gather, lowering it to a
+      general gather) surviving the `_TABLE_BARRIER` optimization_barrier;
   (b) the per-level Dropout masks (7 x threefry bernoulli over
       [cap, C] — RNG lanes are not free);
-  (c) the coefficient product / per-level VPU work.
+  (c) the coefficient product / per-level elementwise work.
 
 Run: python tools/probe_cobafa_fwd.py [--cap 819200]
 """
@@ -51,8 +49,8 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tinynerf_tpu.models.cobafa import CobafaFeatureField
-    from tinynerf_tpu.ops import interp as I
+    from tinynerf.models.cobafa import CobafaFeatureField
+    from tinynerf.ops import interp as I
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--cap", type=int, default=819_200)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """A/B the shared sigma/rgb decoder stage at the flagship sample budget.
 
-The round-4 audit has decoders fwd+bwd at 14.2 ms vs a ~3 ms floor (MXU
-flops are negligible; the cost is HBM traffic: the f32 [cap, 96] feature
-tensor read twice, per-layer activations stored for the backward, and the
-f32 feature cotangent written back).  Variants measured here:
+The decoders' matmul FLOPs are small; their cost is device-memory traffic:
+the f32 [cap, 96] feature tensor read twice, per-layer activations stored
+for the backward, and the f32 feature cotangent written back.  Variants
+measured here:
 
   shipped       — f32 feats in, bf16 matmuls, plain autodiff
   bf16_feats    — feats handed to the decoders already in bf16 (halves the
@@ -13,7 +13,7 @@ f32 feature cotangent written back).  Variants measured here:
                   downstream)
   remat         — jax.checkpoint around each decoder apply: the backward
                   re-runs the tiny forward instead of loading stored
-                  activations (trades ~0.5 ms of MXU for ~1 GB of traffic)
+                  activations (trades matmul work for ~1 GB of traffic)
   bf16+remat    — both
 
 Each variant times grad(loss) wrt (params, feats) — the training contract:
@@ -39,8 +39,8 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tinynerf_tpu.models import make_model
-    from tinynerf_tpu.models.encodings import positional_encoding
+    from tinynerf.models import make_model
+    from tinynerf.models.encodings import positional_encoding
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--cap", type=int, default=819200)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Isolate the reshape-fold-into-gather pathology on the fused-fine forward.
 
-Hypothesis (round 4): the quad/oct table builds end in a lane-split reshape
-([X, m*4F] -> [M, 4F]); today's XLA folds that reshape into the consuming
-row gather, lowering it to a general gather ~3x slower than the fast row
-path.  An optimization_barrier on the built table forces materialization
-and should restore the ~6-7 ns/group row gather.
+Hypothesis: the quad/oct table builds end in a reshape ([X, m*4F] ->
+[M, 4F]) that XLA may fold into the consuming row gather, lowering it to a
+general gather.  An optimization_barrier on the built table
+(ops/interp.py _TABLE_BARRIER) forces materialization; this times the field
+with the shipped settings so the two can be compared.
 
 Run: python tools/probe_gather_fold.py
 """
@@ -41,7 +41,7 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tinynerf_tpu.models.kplanes import KPlanesFeatureField
+    from tinynerf.models.kplanes import KPlanesFeatureField
 
     print(f"devices: {jax.devices()}", flush=True)
     rng = np.random.default_rng(0)
@@ -54,9 +54,8 @@ def main() -> None:
     params = {"field": base.init(jax.random.PRNGKey(0))}
 
     combos = [
-        dict(fwd_mode="perscale", bwd_mode="scatter", gather_dtype="bfloat16"),
-        dict(fwd_mode="perscale", bwd_mode="sorted", gather_dtype="bfloat16"),
-        dict(fwd_mode="perscale", bwd_mode="sorted_bf16", gather_dtype="bfloat16"),
+        dict(fwd_mode="perscale", gather_dtype="bfloat16"),
+        dict(fwd_mode="fusedfine", gather_dtype="bfloat16"),
         dict(lookup_mode="quad", gather_dtype="bfloat16"),
     ]
     for kw in combos:

@@ -29,9 +29,9 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tinynerf_tpu.models.encodings import positional_encoding, posenc_dim
-    from tinynerf_tpu.models.kplanes import KPlanesExplicitColorDecoder
-    from tinynerf_tpu.models.mlp import mlp_apply_split
+    from tinynerf.models.encodings import positional_encoding, posenc_dim
+    from tinynerf.models.kplanes import KPlanesExplicitColorDecoder
+    from tinynerf.models.mlp import mlp_apply_split
 
     def timeit(f, *args, iters=10):
         out = f(*args)
@@ -105,7 +105,7 @@ def main() -> None:
             + first["b"].astype(jnp.float32)
         ).astype(cdt)
         x = jax.nn.relu(h)
-        from tinynerf_tpu.models.mlp import linear_apply
+        from tinynerf.models.mlp import linear_apply
 
         for layer in params["mlp"][1:-1]:
             x = jax.nn.relu(linear_apply(layer, x, cdt))

@@ -103,7 +103,7 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tinynerf_tpu.models.kplanes import KPlanesFeatureField
+    from tinynerf.models.kplanes import KPlanesFeatureField
 
     print(f"devices: {jax.devices()}", flush=True)
     field = KPlanesFeatureField()

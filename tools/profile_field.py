@@ -2,9 +2,7 @@
 """Fine-grained timing of the field fwd/bwd pieces at the flagship budget.
 
 profile_step.py attributes the train step to stages; this tool splits the
-dominant stage — the field fwd+bwd — into its constituent ops so the
-non-floor fat is visible (the gather/scatter floors themselves are set by
-hardware: BASELINE.md "refined gather/scatter cost model").
+dominant stage — the field fwd+bwd — into its constituent ops.
 
 Usage: python tools/profile_field.py [--method kplanes|cobafa] [--cap 819200]
 """
@@ -45,8 +43,8 @@ def timeit(name, fn, *args, n=10):
 
 
 def profile_kplanes(cap: int, n: int):
-    from tinynerf_tpu.models.kplanes import DIMENSION_PAIRS, KPlanesFeatureField
-    from tinynerf_tpu.ops import interp as I
+    from tinynerf.models.kplanes import DIMENSION_PAIRS, KPlanesFeatureField
+    from tinynerf.ops import interp as I
 
     field = KPlanesFeatureField()
     params = field.init(jax.random.PRNGKey(0))
@@ -150,9 +148,9 @@ def profile_kplanes(cap: int, n: int):
 
 
 def profile_cobafa(cap: int, n: int):
-    from tinynerf_tpu.models.cobafa import CobafaFeatureField
-    from tinynerf_tpu.ops import interp as I
-    from tinynerf_tpu.ops.interp import sawtooth
+    from tinynerf.models.cobafa import CobafaFeatureField
+    from tinynerf.ops import interp as I
+    from tinynerf.ops.interp import sawtooth
 
     field = CobafaFeatureField()
     params = field.init(jax.random.PRNGKey(0))

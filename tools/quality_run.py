@@ -28,8 +28,6 @@ def main():
     ap.add_argument("--lookup", default=None, choices=[None, "fused", "quad", "mixed", "plain"])
     ap.add_argument("--fwd-mode", default=None, choices=[None, "perscale", "fusedfine"],
                     help="kplanes fused-mode forward gather shape")
-    ap.add_argument("--bwd-mode", default=None, choices=[None, "auto", "scatter", "sorted"],
-                    help="kplanes fused-mode table-gradient accumulation")
     ap.add_argument("--eval-every", type=int, default=None,
                     help="eval cadence for the time-to-PSNR timeline")
     ap.add_argument("--eval-n", type=int, default=2)
@@ -45,7 +43,7 @@ def main():
     ap.add_argument("--lr-tables", type=float, default=None,
                     help="split lr for feature tables (None = same as --lr)")
     ap.add_argument("--tv", type=float, default=1e-4)
-    # --- deviation-parity switches (BASELINE.md matrix) ---
+    # --- deviation-parity switches ---
     ap.add_argument("--init-range", default=None,
                     help="kplanes plane init, e.g. '0,1' (reference) or "
                          "'0.5,1.5' (ours, the default)")
@@ -66,11 +64,11 @@ def main():
 
     import numpy as np
 
-    from tinynerf_tpu.utils.fixtures import make_synthetic_scene as _make_synthetic_scene
+    from tinynerf.utils.fixtures import make_synthetic_scene as _make_synthetic_scene
 
-    from tinynerf_tpu.data import PoseSet, RayPool, parse_nerf_synthetic
-    from tinynerf_tpu.train import TrainConfig, train
-    import tinynerf_tpu.train.loop as loop_mod
+    from tinynerf.data import PoseSet, RayPool, parse_nerf_synthetic
+    from tinynerf.train import TrainConfig, train
+    import tinynerf.train.loop as loop_mod
 
     scene = Path(tempfile.mkdtemp()) / args.scene
     _make_synthetic_scene(
@@ -103,8 +101,8 @@ def main():
         cfg.fwd_clamp = False
 
     # optionally override field construction knobs via the registry
-    if args.lookup or args.gather_dtype or args.init_range or args.fwd_mode or args.bwd_mode:
-        from tinynerf_tpu.models import registry
+    if args.lookup or args.gather_dtype or args.init_range or args.fwd_mode:
+        from tinynerf.models import registry
 
         orig = registry.make_model
 
@@ -117,8 +115,6 @@ def main():
                 kw["gather_dtype"] = args.gather_dtype
             if args.fwd_mode and hasattr(field, "fwd_mode"):
                 kw["fwd_mode"] = args.fwd_mode
-            if args.bwd_mode and hasattr(field, "bwd_mode"):
-                kw["bwd_mode"] = args.bwd_mode
             if args.init_range and hasattr(field, "init_range"):
                 lo, hi = (float(v) for v in args.init_range.split(","))
                 kw["init_range"] = (lo, hi)

@@ -36,10 +36,10 @@ def main():
 
     import jax
 
-    from tinynerf_tpu.data import Intrinsics, NerfData, PoseSet
-    from tinynerf_tpu.train import TrainConfig, build_renderer, load_checkpoint
-    from tinynerf_tpu.train.loop import infer, make_render_chunk_packed
-    from tinynerf_tpu.utils.fixtures import CAMERA_ANGLE_X, look_at_matrix
+    from tinynerf.data import Intrinsics, NerfData, PoseSet
+    from tinynerf.train import TrainConfig, build_renderer, load_checkpoint
+    from tinynerf.train.loop import infer, make_render_chunk_packed
+    from tinynerf.utils.fixtures import CAMERA_ANGLE_X, look_at_matrix
 
     step, state = load_checkpoint(Path(args.ckpt))
     cfg = TrainConfig(

@@ -1,11 +1,10 @@
 #!/usr/bin/env bash
 # One-command quality-parity run on Blender-synthetic Lego — the benchmark
 # the reference actually ticks (/root/reference/README.md:14; north star:
-# K-Planes Lego PSNR within 0.1 dB, BASELINE.json configs #3-5).
+# K-Planes Lego PSNR within 0.1 dB).
 #
-# Environment blocker (re-verified 2026-08-19, BASELINE.md): this container
-# has no network egress (DNS resolution fails) and no Blender-synthetic data
-# on disk.  The hour a Lego dataset becomes reachable, run:
+# Needs the Blender-synthetic Lego scene on disk (nothing is downloaded).
+# With it, run:
 #
 #   tools/run_lego.sh /path/to/nerf_synthetic/lego [output_dir]
 #
@@ -45,7 +44,7 @@ ssim = float(np.mean([m["ssim"] for m in test]))
 print(f"\n=== Lego quality parity ({exp}) ===")
 print(f"test PSNR {psnr:.2f} dB   SSIM {ssim:.4f}   over {len(test)} images")
 print("anchors: K-Planes paper Lego ~35.75 dB (hybrid); vanilla NeRF ~32.54 dB")
-print("target : reference parity within 0.1 dB (BASELINE.json north star)")
+print("target : reference parity within 0.1 dB")
 tl = exp / "eval_timeline.json"
 if tl.exists():
     for e in json.loads(tl.read_text()):

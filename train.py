@@ -2,8 +2,8 @@
 """CLI entry point — same surface as the reference's train.py (flags:
 --data --datatype --output --scene_type --method --batch_size --n_samples
 --eval/--eval_every/--eval_n; SEED env var; unique experiment directory
-{uuid8}_{method}_{scene}_{n_samples}), plus TPU extras (--dtype, --resume,
---steps, --checkpoint_every).
+{uuid8}_{method}_{scene}_{n_samples}), plus extras (--dtype, --resume,
+--steps, --checkpoint_every, --render_only, ...).
 """
 
 from __future__ import annotations
@@ -13,13 +13,16 @@ import os
 import uuid
 from pathlib import Path
 
-from tinynerf_tpu.data import PoseSet, RayPool, parse_nerf_synthetic, parse_nerfstudio
-from tinynerf_tpu.train import TrainConfig, train
+from tinynerf.data import PoseSet, RayPool, parse_nerf_synthetic, parse_nerfstudio
+from tinynerf.train import TrainConfig, train
+from tinynerf.utils.runtime import enable_compile_cache
 
 
-def main() -> None:
+def main(argv=None):
+    """Run the CLI on `argv` (default: sys.argv).  Returns what `train`
+    returns, or the per-image metrics of `--render_only`."""
     parser = argparse.ArgumentParser(
-        prog="tinynerf-tpu", description="Train a radiance field on TPU"
+        prog="tinynerf", description="Train a radiance field"
     )
     parser.add_argument("--data", type=str, required=True, help="path to the data folder")
     parser.add_argument(
@@ -73,7 +76,8 @@ def main() -> None:
                         help="scale the field's spatial capacity (table "
                              "resolutions / MLP width) preserving structure; "
                              "1.0 = reference configuration")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
+    enable_compile_cache()
 
     seed = int(os.environ.get("SEED", 0))
 
@@ -126,15 +130,14 @@ def main() -> None:
         field_scale=args.field_scale,
     )
     if args.render_only:
-        from tinynerf_tpu.train.loop import render_only
+        from tinynerf.train.loop import render_only
 
-        render_only(cfg, test_set)
-        return
+        return render_only(cfg, test_set)
 
     # --eval without an explicit cadence evaluates 8 times over the run
     if args.eval and cfg.eval_every is None:
         cfg.eval_every = max(1, cfg.total_steps // 8)
-    train(cfg, train_rays, eval_set, test_set, resume=args.resume)
+    return train(cfg, train_rays, eval_set, test_set, resume=args.resume)
 
 
 if __name__ == "__main__":
